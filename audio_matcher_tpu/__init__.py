@@ -1,11 +1,12 @@
-"""audio_matcher_tpu — a TPU-native audio alignment framework.
+"""audio_matcher_tpu — a GPU-accelerated audio alignment framework in JAX.
 
 Re-implements the full capability surface of the reference ``audio-matcher``
 Rust CLI suite (FFT snippet matching, Audacity-driven episode cutting,
-series-index/archive bookkeeping, mp3/opus tagging), redesigned TPU-first:
-the compute core is batched overlap-save rFFT cross-correlation with
-on-device peak picking (JAX/XLA/Pallas), batched over many
-(episode, snippet) pairs and sharded over a chip mesh via ``jax.sharding``.
+series-index/archive bookkeeping, mp3/opus tagging), redesigned for an
+accelerator: the compute core is batched overlap-save FFT
+cross-correlation with on-device peak picking (JAX/XLA/Pallas), batched
+over many (episode, snippet) pairs and sharded over a device mesh via
+``jax.sharding``.
 
 Layer map (mirrors SURVEY.md §1):
   L0 hostio.decode     — mp3/opus/wav → f32 mono PCM (C++ frontend + fallback)

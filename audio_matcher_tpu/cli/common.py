@@ -182,25 +182,3 @@ class Inputs:
                 prompt += f"[{initial}] "
             line = input(prompt)
             return line or (initial or "")
-
-
-def resolve_peaks_impl(choice: str) -> str:
-    """CLI "auto" → pallas on TPU (compiled kernel), jnp elsewhere (the
-    pallas interpreter on CPU is orders of magnitude slower than the jnp
-    path it exists to beat)."""
-    if choice != "auto":
-        return choice
-    import jax
-
-    return "pallas" if jax.default_backend() == "tpu" else "jnp"
-
-
-def resolve_fft_impl(choice: str) -> str:
-    """CLI "auto" → the Pallas VPU FFT on TPU (measured fastest; falls
-    back internally below 2^14), xla_packed elsewhere (interpret-mode
-    pallas FFTs on CPU are for tests, not production)."""
-    if choice != "auto":
-        return choice
-    import jax
-
-    return "vpu" if jax.default_backend() == "tpu" else "xla_packed"

@@ -22,8 +22,10 @@ from ..models.matcher import (
     MatchConfig,
     SnippetMatcher,
 )
+from ..ops import impls
 from ..utils.durations import fmt_hms, parse_duration
 from ..utils.progressbar import Progress
+from ..utils.runtime import enable_compile_cache
 from . import common
 from .. import __version__
 
@@ -34,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="audio-matcher",
         description="find snippets (intros/outros/jingles) inside recordings "
-        "via TPU-accelerated FFT cross-correlation",
+        "via GPU-accelerated FFT cross-correlation",
     )
     p.add_argument(
         "--version", action="version",
@@ -83,21 +85,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--resample-impl", choices=("auto", "device", "scipy"),
         default="auto", metavar="IMPL",
-        help="resampler: device = polyphase as one MXU convolution, "
+        help="resampler: device = polyphase as one device convolution, "
         "scipy = host; auto picks device when an accelerator is attached",
     )
     p.add_argument(
-        "--fft-impl", choices=("auto", "xla", "xla_packed", "mxu", "vpu"),
-        default="auto", metavar="IMPL",
-        help="correlation FFT implementation (auto = the fused Pallas VPU "
-        "FFT on TPU — measured fastest on v5e — and xla_packed elsewhere; "
-        "mxu: matmul four-step FFT)",
+        "--fft-impl", choices=("auto", *impls.FFT_IMPLS), default="auto",
+        metavar="IMPL",
+        help="correlation FFT implementation (auto = xla_packed: pair-packed "
+        "cuFFT transforms; xla: one transform per correlation, the test "
+        "oracle; mxu: matmul four-step FFT)",
     )
     p.add_argument(
-        "--peaks-impl", choices=("auto", "jnp", "pallas"), default="auto",
+        "--peaks-impl", choices=("auto", *impls.PEAKS_IMPLS), default="auto",
         metavar="IMPL",
-        help="peak-pick implementation (pallas: single-HBM-pass kernel; "
-        "auto = pallas on TPU, jnp elsewhere)",
+        help="peak-pick implementation (pallas: the single-pass Triton "
+        "kernel; auto = pallas on a GPU, jnp on the CPU)",
     )
     p.add_argument(
         "--mode", choices=("pcm", "spectrogram"), default="pcm",
@@ -137,6 +139,7 @@ def run(args: argparse.Namespace) -> int:
     # one decode per file: the probe falls back to the decoded length when
     # the tag cache is cold instead of decoding again
     s_duration = audio_duration(args.snippet, fallback=len(s_samples) / sr)
+    enable_compile_cache()
     config = MatchConfig(
         chunk_secs=float(args.chunk_size),
         distance_secs=float(args.distance),
@@ -149,8 +152,8 @@ def run(args: argparse.Namespace) -> int:
         # hold the decoded samples anyway, so clamp)
         overlap_secs=max(s_duration, len(s_samples) / sr),
         transfer_dtype=args.transfer,
-        fft_impl=common.resolve_fft_impl(args.fft_impl),
-        peaks_impl=common.resolve_peaks_impl(args.peaks_impl),
+        fft_impl=impls.resolve_fft_impl(args.fft_impl),
+        peaks_impl=impls.resolve_peaks_impl(args.peaks_impl),
         resample_impl=args.resample_impl,
     )
     def build_matcher(snip, rate):

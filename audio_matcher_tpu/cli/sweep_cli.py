@@ -1,4 +1,4 @@
-"""``audio-sweep`` — batched archive scanning over a chip mesh.
+"""``audio-sweep`` — batched archive scanning over a device mesh.
 
 A capability surface beyond the reference (BASELINE.json configs #3/#5):
 scan many recordings against one or more query snippets in mesh-sharded
@@ -23,9 +23,11 @@ from ..models.matcher import (
     DEFAULT_PROMINENCE,
     MatchConfig,
 )
+from ..ops import impls
 from ..parallel.mesh import init_distributed, make_mesh
 from ..parallel.sweep import sweep_archive
 from ..utils.durations import parse_duration
+from ..utils.runtime import enable_compile_cache
 from . import common
 
 log = logging.getLogger("audio_matcher.sweep")
@@ -34,7 +36,7 @@ log = logging.getLogger("audio_matcher.sweep")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="audio-sweep",
-        description="scan a whole archive for query snippets on a TPU mesh",
+        description="scan a whole archive for query snippets on a GPU mesh",
     )
     p.add_argument(
         "--version", action="version", version=f"%(prog)s {__version__}"
@@ -82,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--resample-impl", choices=("auto", "device", "scipy"),
         default="auto", metavar="IMPL",
-        help="resampler: device = polyphase as one MXU convolution "
+        help="resampler: device = polyphase as one device convolution "
         "(ops/resample.py), scipy = host; auto picks device when an "
         "accelerator is attached",
     )
@@ -92,17 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="staging wire format (default int16: lossless vs 16-bit source)",
     )
     p.add_argument(
-        "--fft-impl", choices=("auto", "xla", "xla_packed", "mxu", "vpu"),
-        default="auto", metavar="IMPL",
-        help="correlation FFT implementation (auto = the fused Pallas VPU "
-        "FFT on TPU — measured fastest on v5e — and xla_packed elsewhere; "
-        "mxu: matmul four-step FFT)",
+        "--fft-impl", choices=("auto", *impls.FFT_IMPLS), default="auto",
+        metavar="IMPL",
+        help="correlation FFT implementation (auto = xla_packed: pair-packed "
+        "cuFFT transforms; xla: one transform per correlation, the test "
+        "oracle; mxu: matmul four-step FFT)",
     )
     p.add_argument(
-        "--peaks-impl", choices=("auto", "jnp", "pallas"), default="auto",
+        "--peaks-impl", choices=("auto", *impls.PEAKS_IMPLS), default="auto",
         metavar="IMPL",
-        help="peak-pick implementation (pallas: single-HBM-pass kernel; "
-        "auto = pallas on TPU, jnp elsewhere)",
+        help="peak-pick implementation (pallas: the single-pass Triton "
+        "kernel; auto = pallas on a GPU, jnp on the CPU)",
     )
     p.add_argument(
         "--mode", choices=("pcm", "spectrogram"), default="pcm",
@@ -137,21 +139,23 @@ def run(args: argparse.Namespace) -> int:
             return 1
         snippets.append(s)
 
+    # join a configured multi-process cluster (env-driven; no-op
+    # otherwise) BEFORE anything touches the backend. On multi-process,
+    # leave mesh=None so sweep_archive builds each process's LOCAL mesh
+    # (whole episodes per process, zero cross-process device traffic) —
+    # a process-spanning mesh here would stage local groups onto other
+    # processes' non-addressable devices.
+    init_distributed()
+    enable_compile_cache()
     config = MatchConfig(
         chunk_secs=float(args.chunk_size),
         distance_secs=float(args.distance),
         prominence=args.prominence,
         transfer_dtype=args.transfer,
-        fft_impl=common.resolve_fft_impl(args.fft_impl),
-        peaks_impl=common.resolve_peaks_impl(args.peaks_impl),
+        fft_impl=impls.resolve_fft_impl(args.fft_impl),
+        peaks_impl=impls.resolve_peaks_impl(args.peaks_impl),
         resample_impl=args.resample_impl,
     )
-    # join a configured multi-host cluster (env-driven; no-op otherwise).
-    # On multi-host, leave mesh=None so sweep_archive builds each host's
-    # LOCAL mesh (whole episodes per host, zero DCN device traffic) — a
-    # process-spanning mesh here would stage local groups onto other
-    # hosts' non-addressable devices.
-    init_distributed()
     import jax
 
     if jax.process_count() > 1 and args.devices is None:

@@ -1,7 +1,7 @@
 """Pipelined host decode: prefetch audio files ahead of device compute.
 
 The reference's hot loop decodes mp3 lazily on the scanning thread
-(SURVEY.md §3.1 — the serial decode feeds the chunker); TPU-side the decode
+(SURVEY.md §3.1 — the serial decode feeds the chunker); here the decode
 must instead run AHEAD of the device so host I/O and accelerator compute
 overlap. A small thread pool decodes up to ``depth`` files in advance into
 a bounded queue (double/triple buffering).

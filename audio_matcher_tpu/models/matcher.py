@@ -1,6 +1,6 @@
 """The snippet matcher: overlap-save chunked scan + global peak dedup.
 
-TPU-native redesign of the reference's ``calc_chunks`` hot path
+Device redesign of the reference's ``calc_chunks`` hot path
 (reference src/matcher/audio_matcher.rs:88-141): instead of a rayon thread
 pool pulling overlapping windows off a lazy decoder iterator and running one
 rFFT per chunk, the flat episode is staged into HBM once and the whole scan
@@ -35,7 +35,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.correlate import PreparedSnippet, fft_length, prepare_snippet
+from ..ops.correlate import (
+    PreparedSnippet,
+    fft_length,
+    fft_rows,
+    prepare_snippet,
+)
 from ..ops.peaks import (
     Peak,
     peaks_crop_width,
@@ -53,13 +58,13 @@ DEFAULT_PROMINENCE = 13.0  # parity: matcher/args.rs:16-22
 @dataclasses.dataclass(frozen=True)
 class MatchConfig:
     """Parity with ``Config``/``PeakConfig`` (audio_matcher.rs:24-53) plus
-    TPU batching knobs."""
+    device batching knobs."""
 
     chunk_secs: float = DEFAULT_CHUNK_SECS
     distance_secs: float = DEFAULT_DISTANCE_SECS
     prominence: float = DEFAULT_PROMINENCE  # CLI units; /100 applied internally
     overlap_secs: float | None = None  # None → snippet duration
-    # TPU batching
+    # device batching
     slab: int = 8  # windows per device dispatch (the preferred/maximum)
     # shrink the slab when the episode's window count would pad >25%
     # at `slab` (pick_slab) — padded windows are full-price compute and
@@ -79,28 +84,26 @@ class MatchConfig:
     # correlation values, like the reference's direct PeakConfig
     # construction (audio_matcher.rs:566-568); False: CLI convention /100
     prominence_is_raw: bool = False
-    # correlation FFT implementation:
-    #  "xla" — jnp.fft rfft/irfft (XLA's native TPU FFT, VPU-bound)
+    # correlation FFT implementation (ops/impls.py resolves "auto"):
+    #  "xla" — jnp.fft rfft/irfft (cuFFT on the GPU); the test oracle
     #  "xla_packed" — XLA FFTs with pair packing: two real correlations
     #          per complex inverse transform (query pairs multi-query,
     #          window pairs single-query); ~1e-6 score difference,
     #          identical peaks, ~0.6x the FFT work of "xla"
     #  "mxu" — matmul four-step FFT with the same packing
-    #          (ops/mxu_fft.py); measured ≈ "xla" at HIGHEST precision
-    #  "vpu" — pallas two-factor DIF FFT (ops/pallas_fft.py): butterflies
-    #          in VMEM, scrambled order end-to-end; measured 1.25-2.2×
-    #          XLA's FFT on v5e. Falls back to xla_packed below 2^14
+    #          (ops/mxu_fft.py), at HIGHEST precision
     fft_impl: str = "xla"
     # peak-pick implementation: "jnp" (multi-pass, ops/peaks.py) or
-    # "pallas" (single HBM pass + block-array rounds, identical results)
+    # "pallas" (single device-memory pass + block-array rounds through
+    # the Triton kernel, identical results)
     peaks_impl: str = "jnp"
     # cross-rate resampling: "auto" (device polyphase when an accelerator
     # is attached, scipy otherwise), "device", or "scipy"
     resample_impl: str = "auto"
     # live progress: slabs per device dispatch when a progress callback is
     # present (SURVEY §2.16 two-phase semantics — the bar advances with
-    # real device completion). Each dispatch pays the per-call RPC floor
-    # (~31 ms on relayed links); the no-callback bench regime is unchanged
+    # real device completion). Each dispatch pays one launch and one
+    # readback; the no-callback regime is a single dispatch
     progress_slabs_per_dispatch: int = 4
 
     @property
@@ -133,9 +136,8 @@ def _ulaw_tables():
         ).astype(np.uint8)
         # indexed by the UINT16 VIEW of the int16 wire (two's complement:
         # v>=0 → v, v<0 → v+65536), so the hot encode is a single gather
-        # with no int32 temporary and no +32768 pass — on the 1-vCPU
-        # bench host the eliminated ~6 bytes/sample of memory traffic is
-        # a real slice of single-pair staging (PERF.md config #2)
+        # with no int32 temporary and no +32768 pass (~6 bytes/sample of
+        # host memory traffic less on the single-pair staging path)
         _ULAW_ENC_LUT = np.roll(enc_by_value, -32768)
         b = np.arange(256, dtype=np.float64) / 127.5 - 1.0
         u = np.sign(b) * (np.expm1(np.abs(b) * np.log1p(_MU))) / _MU
@@ -198,10 +200,9 @@ class StagingArena:
     """Reusable host staging buffers for a group-by-group sweep.
 
     A fresh ``wire_buffer`` per group costs a zeroed allocation of the full
-    group bytes (page-fault-bound on a 1-vCPU host); the arena instead
+    group bytes (page-fault-bound); the arena instead
     keeps one buffer per (rows, width) shape and re-silences only the
-    stale span each row's previous episode wrote beyond the new one
-    (ROADMAP #1 streaming decode→stage).
+    stale span each row's previous episode wrote beyond the new one.
 
     Single-flight semantics: rows are overwritten on the next ``get`` for
     the same shape, so a staged device array must be consumed before the
@@ -240,9 +241,8 @@ class StagingArena:
 def dequantize_on_device(episode: jax.Array) -> jax.Array:
     """Device-side inverse of :func:`quantize_wire` (dtype-dispatched).
 
-    μ-law expands arithmetically rather than via a 256-entry LUT gather:
-    TPU gathers over a whole episode are orders of magnitude slower than
-    a few elementwise ops (same lesson as the STFT framing, PERF.md).
+    μ-law expands arithmetically rather than via a 256-entry LUT gather
+    over the whole episode (ops/wire.py).
     """
     from ..ops.wire import dequant_to_f32
 
@@ -280,11 +280,10 @@ def pick_slab(
 
     The window count pads to a slab multiple, and padded windows are
     full-price compute AND wire bytes: a 10-minute episode's 10 windows
-    pad to 16 at slab 8 — 60% waste (measured 22% device-resident loss
-    at BASELINE config #3's literal shape; PERF.md "slab-pad
-    follow-up"). When the preferred slab would waste more than
-    ``max_waste`` of the real windows, pick the slab in [4, preferred)
-    minimizing the padded count (ties → larger slab, fewer dispatches).
+    pad to 16 at slab 8 — 60% waste. When the preferred slab would waste
+    more than ``max_waste`` of the real windows, pick the slab in
+    [4, preferred) minimizing the padded count (ties → larger slab, fewer
+    dispatches).
 
     Episodes of ≤ ``preferred`` windows keep the preferred slab: the
     absolute waste is small and test/short-clip shapes stay shared
@@ -295,9 +294,9 @@ def pick_slab(
     Compile-count trade-off: adapting adds at most a handful of
     (slab, n_slabs) classes beyond the preferred-multiples grid (only
     window counts with >25% waste adapt, i.e. n < 3.5·preferred), each
-    a one-time compile per process — minutes on cacheless relay links,
-    negligible with a persistent compilation cache; the padded-window
-    saving recurs per scan (measured +22% at BASELINE config #3).
+    a one-time compile per process (kept across processes by the
+    persistent compilation cache, utils/runtime.py); the padded-window
+    saving recurs per scan.
     ``slab_auto=False`` restores the preferred-multiples-only grid.
     """
     if n_windows <= preferred or preferred <= 4:
@@ -333,9 +332,9 @@ def effective_slab(cfg, n_windows: int) -> int:
 
 def put_bytes_cap() -> int:
     """Max bytes per host→device transfer (``AUDIO_MATCHER_PUT_BYTES``,
-    default 768 MB) — monolithic multi-GB puts collapse relay-attached
-    links to a fraction of their rate (PERF.md "Relay upload throughput
-    vs transfer size"). Values ≤ 0 disable splitting (every splitter
+    default 768 MB); larger staging buffers go up as equal pieces.
+    Whether splitting helps on a PCIe-attached GPU is an open
+    measurement (ROADMAP). Values ≤ 0 disable splitting (every splitter
     would otherwise divide by the cap)."""
     import os
 
@@ -349,12 +348,8 @@ def stage_fence_policy() -> str:
     """How :func:`_device_put_split` paces multi-piece staging
     (``AUDIO_MATCHER_STAGE_FENCE``): ``batch`` (default) dispatches all
     pieces and lets the caller fence afterwards; ``serial`` fences each
-    piece before dispatching the next (put+fence per piece). Round 5's
-    interleaved repeats settled it (PERF.md "Round-5 serial-fence
-    repeats"): serial does NOT win — medians 471 vs batch's 932 MB/s at
-    3.4 GB, 920-973 vs 1065-1126 at 682 MB; round 4's one-sample 2.7x
-    "win" was relay weather. ``batch`` stays the default; ``serial``
-    remains a probe knob."""
+    piece before dispatching the next (put+fence per piece). ``batch``
+    is the default; ``serial`` is a measurement knob."""
     import os
 
     policy = os.environ.get("AUDIO_MATCHER_STAGE_FENCE", "batch")
@@ -406,9 +401,8 @@ def windows_from_episode(episode, base, slab: int, chunk: int, window: int):
     """[slab, window] overlap-save windows starting at ``base·chunk``.
 
     Built as k static row-shifted slices of a [rows, chunk] view + one
-    concat — ``vmap(dynamic_slice)`` over per-window starts lowers to an
-    XLA gather, which on TPU costs ~4× the traffic it moves (the same
-    trap as the STFT framing; PERF.md). Requires the staged episode
+    concat — ``vmap(dynamic_slice)`` over per-window starts would lower
+    to an XLA gather instead of plain copies. Requires the staged episode
     padded to ``(n_windows_pad + k)`` whole chunks.
     """
     k = window_rows(window, chunk)
@@ -438,8 +432,8 @@ def _match_slab(
     block: int,
 ):
     """One fused device step: correlate a slab of windows and pick peaks."""
-    x = jnp.fft.rfft(windows, n=fft_len)
-    c = jnp.fft.irfft(x * jnp.conj(sample_f), n=fft_len)[..., :valid_max]
+    x = fft_rows("rfft", windows, fft_len)
+    c = fft_rows("irfft", x * jnp.conj(sample_f), fft_len)[..., :valid_max]
     c = c * inv_ac
     return pick_peaks_batch(
         c, valid_out_len, distance=distance, n_peaks=n_peaks, block=block
@@ -464,16 +458,8 @@ def _corr_windows(windows, sample_f, fft_len: int, valid_max: int,
         from ..ops.correlate import corr_single_query_packed
 
         return corr_single_query_packed(windows, sample_f, valid_max)
-    if fft_impl == "vpu":
-        from ..ops.pallas_fft import corr_single_query_vpu
-
-        interpret = jax.default_backend() != "tpu"
-        return corr_single_query_vpu(
-            windows, sample_f[0], sample_f[1], valid_max,
-            interpret=interpret,
-        )
-    x = jnp.fft.rfft(windows, n=fft_len)
-    return jnp.fft.irfft(x * jnp.conj(sample_f), n=fft_len)[..., :valid_max]
+    x = fft_rows("rfft", windows, fft_len)
+    return fft_rows("irfft", x * jnp.conj(sample_f), fft_len)[..., :valid_max]
 
 
 @partial(
@@ -505,8 +491,8 @@ def _match_episode_resident(
 ):
     """Whole-episode scan as ONE device program: ``lax.map`` over slabs.
 
-    A single dispatch + single readback — per-call RPC latency (significant
-    over remote links) is paid once per episode instead of once per slab.
+    A single dispatch + single readback — per-call launch and readback
+    latency is paid once per episode instead of once per slab.
     ``episode`` may be int16 (the staging wire format); it is rescaled to
     the reference's PCM grid on device. Returns (pos, height, prom) each
     [n_slabs*slab, n_peaks].
@@ -516,49 +502,19 @@ def _match_episode_resident(
     GROUP without recompiling per group position; the caller must have
     padded ``episode`` to cover ``base0 + n_slabs·slab + k_rows`` rows.
     """
-    # pad to whole chunk rows ON DEVICE (one cheap HBM copy of the wire
+    # pad to whole chunk rows ON DEVICE (one cheap device copy of the wire
     # array) so windows build from static row slices; uploading the pad
-    # instead would cost relay bandwidth on every staging
+    # instead would cost host→device bytes on every staging
     k_rows = window_rows(window, chunk)
     target = (n_slabs * slab + k_rows) * chunk
-    episode = pad_wire_on_device(episode, target)
-    # the fused vpu+pallas path windows the WIRE episode directly — the
-    # packed-pair forward major kernel dequantizes in-register, so the
-    # f32 episode and f32 windows never materialize in HBM (r3 #1)
-    fused_wire = fft_impl == "vpu" and peaks_impl == "pallas"
-    if not fused_wire:
-        episode = dequantize_on_device(episode)
+    episode = dequantize_on_device(pad_wire_on_device(episode, target))
     crop = min(peaks_crop_width(valid_max, block, peaks_impl), fft_len)
-    if fused_wire:
-        # the planes kernels' width must sit on the 8·M output grid
-        from ..ops.pallas_fft import round_planes_width
-
-        crop = round_planes_width(crop, fft_len)
 
     def body(base):
         starts = (base + jnp.arange(slab, dtype=jnp.int32)) * chunk
         windows = windows_from_episode(episode, base, slab, chunk, window)
         win_len = jnp.clip(n - starts, 0, window)
         valid = jnp.maximum(win_len - m + 1, 0).astype(jnp.int32)
-        if fft_impl == "vpu" and peaks_impl == "pallas":
-            # fully-fused path: correlation planes stay pair-packed; the
-            # de-interleave + inv_ac scale fold into the peak kernel's read
-            from ..ops.pallas_fft import corr_single_query_vpu_planes_wire
-            from ..ops.peaks import pick_peaks_pallas_packed
-
-            interpret = jax.default_backend() != "tpu"
-            yr, yi = corr_single_query_vpu_planes_wire(
-                windows, sample_f[0], sample_f[1], crop,
-                interpret=interpret,
-            )
-            L = 2 * yr.shape[0]  # logical rows incl. odd-slab pad
-            pos, h, prom = pick_peaks_pallas_packed(
-                yr, yi,
-                jnp.broadcast_to(jnp.float32(inv_ac), (L,)),
-                jnp.pad(valid, (0, L - slab)),  # pad rows emit nothing
-                distance, n_peaks, block, interpret=interpret,
-            )
-            return pos[:slab], h[:slab], prom[:slab]
         c = _corr_windows(windows, sample_f, fft_len, crop, fft_impl)
         c = c * inv_ac
         return pick_peaks_dispatch(
@@ -694,11 +650,6 @@ class SnippetMatcher:
         self.valid = self.window - self.snippet.m + 1
         self.fft_len = fft_length(self.window + self.snippet.m - 1)
         self.fft_impl = cfg.fft_impl
-        if self.fft_impl == "vpu":
-            from ..ops.pallas_fft import MIN_N
-
-            if self.fft_len < MIN_N:
-                self.fft_impl = "xla_packed"  # too small for two factors
         # whole-second truncation parity (audio_matcher.rs:228)
         self.distance_samples = int(cfg.distance_secs) * self.sr
         per_chunk = self.valid // max(self.distance_samples, 1) + 2
@@ -708,22 +659,14 @@ class SnippetMatcher:
                 "distance %.1fs allows %d peaks/chunk; capping at %d",
                 cfg.distance_secs, per_chunk, cfg.max_peaks_per_chunk,
             )
-        # computed lazily: keeps construction free of device execution so a
-        # batch of episodes can be staged before the first execution
-        # (staging after any execution drops to the ~21 MB/s cliff)
+        # computed lazily: construction stays free of device execution, so
+        # staging a batch of episodes never waits behind a compile
         self._sample_f_cache: jax.Array | None = None
 
     @property
     def _sample_f(self):
         if self._sample_f_cache is None:
-            if self.fft_impl == "vpu":
-                from ..ops.pallas_fft import scrambled_query_spectra
-
-                self._sample_f_cache = jax.jit(
-                    scrambled_query_spectra,
-                    static_argnames=("fft_len", "pack"),
-                )(self.snippet.data[None, :], self.fft_len, False)
-            elif self.fft_impl == "mxu":  # read the RESOLVED impl like every other branch
+            if self.fft_impl == "mxu":
                 from ..ops.mxu_fft import scrambled_spectra_parts
 
                 self._sample_f_cache = jax.jit(
@@ -755,10 +698,8 @@ class SnippetMatcher:
         """Pad/bucket an episode and transfer it to device HBM.
 
         Staging is split from :meth:`match_staged` so callers can upload a
-        whole batch of episodes BEFORE the first program execution — on
-        tunneled/relayed links the host→device path is dramatically faster
-        before the execution stream starts. ``stage`` performs no device
-        computation. ``samples`` may be reference-scale f32 or int16 wire
+        whole batch of episodes before the first program execution and time
+        the two apart. ``stage`` performs no device computation. ``samples`` may be reference-scale f32 or int16 wire
         values (e.g. straight from ``read_audio_int16``).
 
         The device handle is an OPAQUE value for :meth:`match_staged`:
@@ -905,8 +846,7 @@ class SnippetMatcher:
             peaks_impl=cfg.peaks_impl,
         )
         # one pytree fetch: device_get starts every copy async before
-        # blocking, so the relay's per-RPC round-trip floor is paid once,
-        # not three times (PERF.md single-pair latency)
+        # blocking, so the readback round trip is paid once, not three times
         pos, h, prom = jax.device_get((pos, h, prom))
         return self._extract_peaks(pos, h, prom, n_windows, progress)
 
@@ -917,8 +857,7 @@ class SnippetMatcher:
         """Groupwise dispatch driving HONEST two-phase progress: each
         group of ``progress_slabs_per_dispatch`` slabs is one device
         program; its windows' "start" fires at dispatch and "finish" at
-        readback, so the bar tracks real device completion (VERDICT r2
-        weak #1 — previously every start fired before the ONE dispatch).
+        readback, so the bar tracks real device completion.
         Identical results to the single-dispatch path (same compiled body,
         offset by a traced ``base0``; equality test in test_matcher)."""
         cfg = self.config
@@ -928,12 +867,10 @@ class SnippetMatcher:
         episode_dev = pad_wire_on_device(
             episode_dev, (n_slabs * B + k_rows) * self.chunk
         )
-        if not (self.fft_impl == "vpu" and cfg.peaks_impl == "pallas"):
-            # non-fused impls dequantize inside the program — doing it
-            # once here keeps each per-group dispatch from re-expanding
-            # the WHOLE episode to f32 (ceil(n_slabs/g) redundant passes);
-            # the fused path reads the wire directly and needs no pass
-            episode_dev = dequantize_on_device(episode_dev)
+        # the program dequantizes its input — doing it once here keeps
+        # each per-group dispatch from re-expanding the WHOLE episode to
+        # f32 (ceil(n_slabs/g) redundant passes)
+        episode_dev = dequantize_on_device(episode_dev)
         common = dict(
             chunk=self.chunk, window=self.window, m=self.snippet.m,
             fft_len=self.fft_len, valid_max=self.valid,

@@ -1,15 +1,16 @@
 """FFT cross-correlation on device (the L2 signal-engine core).
 
-TPU-native equivalent of the reference's ``CorrelateAlgo`` implementations
+Device equivalent of the reference's ``CorrelateAlgo`` implementations
 (reference src/matcher/audio_matcher.rs:65-76 trait; :282-344 ``LibConvolve``;
 :379-479 ``MyConvolve``): batched real-FFT cross-correlation
 ``irfft(rfft(within) * conj(rfft(sample)))`` with Full/Same/Valid cropping and
 optional normalization by the snippet's inverse autocorrelation so a perfect
 match scores ≈ 1.0.
 
-Design differences from the reference (deliberate, TPU-first):
+Design differences from the reference (deliberate):
   * FFT length is padded to a power of two ≥ n+m-1 instead of exactly n+m-1 —
-    XLA's TPU FFT (decomposed onto the MXU) strongly prefers pow2 sizes. Linear
+    library FFTs (cuFFT) are fastest on pow2 sizes, and the matmul FFT
+    (ops/mxu_fft.py) needs them. Linear
     correlation through zero-padded circular FFT is exact for any length
     ≥ n+m-1, so match offsets and scores are unchanged.
   * Whole batches of overlap-save windows go through ONE batched rfft/irfft
@@ -29,6 +30,7 @@ Design differences from the reference (deliberate, TPU-first):
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import partial
 
 import jax
@@ -38,8 +40,36 @@ import numpy as np
 Mode = str  # "full" | "same" | "valid"
 
 
+# XLA's GPU FFT (cuFFT) returns wrong values once ONE transform call covers
+# 2**31 elements or more (measured on the H100: batched irfft and ifft of
+# 512 × 2**22 differ from the same rows transformed in chunks, while
+# 511 × 2**22 matches exactly). Every batched transform of the scan goes
+# through fft_rows, which keeps each call below that.
+FFT_MAX_ELEMENTS = (1 << 31) - 1
+
+
+def fft_rows(op: str, x: jax.Array, n: int) -> jax.Array:
+    """``jnp.fft.<op>(x, n=n)`` over the last axis (op: fft, ifft, rfft,
+    irfft), computed in leading-batch chunks of at most
+    ``FFT_MAX_ELEMENTS`` elements per transform call (``lax.map`` over
+    equal chunks — the largest divisor of the row count that fits)."""
+    fn = getattr(jnp.fft, op)
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    width = max(n, x.shape[-1])  # elements per row on the wider side
+    if rows * width <= FFT_MAX_ELEMENTS:
+        return fn(x, n=n)
+    fit = max(FFT_MAX_ELEMENTS // width, 1)
+    chunk = next(d for d in range(min(fit, rows), 0, -1) if rows % d == 0)
+    out = jax.lax.map(
+        lambda xs: fn(xs, n=n),
+        x.reshape(rows // chunk, chunk, x.shape[-1]),
+    )
+    return out.reshape(*lead, out.shape[-1])
+
+
 def fft_length(min_len: int) -> int:
-    """Smallest power of two ≥ min_len (TPU-friendly FFT size)."""
+    """Smallest power of two ≥ min_len (the FFT size bucket)."""
     n = 1
     while n < min_len:
         n <<= 1
@@ -72,9 +102,9 @@ def prepare_snippet(sample: np.ndarray) -> PreparedSnippet:
 
 @partial(jax.jit, static_argnames=("fft_len", "valid_len"))
 def _corr_valid(windows, sample, fft_len: int, valid_len: int):
-    x = jnp.fft.rfft(windows, n=fft_len)
-    s = jnp.fft.rfft(sample, n=fft_len)
-    c = jnp.fft.irfft(x * jnp.conj(s), n=fft_len)
+    x = fft_rows("rfft", windows, fft_len)
+    s = fft_rows("rfft", sample, fft_len)
+    c = fft_rows("irfft", x * jnp.conj(s), fft_len)
     return c[..., :valid_len]
 
 
@@ -129,13 +159,13 @@ def correlate(
     sample = jnp.asarray(sample, jnp.float32)
     n, m = within.shape[-1], sample.shape[-1]
     L = fft_length(n + m - 1)
-    x = jnp.fft.rfft(within, n=L)
+    x = fft_rows("rfft", within, L)
     if use_conjugation:
-        s = jnp.fft.rfft(sample, n=L)
-        c = jnp.fft.irfft(x * jnp.conj(s), n=L)
+        s = fft_rows("rfft", sample, L)
+        c = fft_rows("irfft", x * jnp.conj(s), L)
     else:
-        s_rev = jnp.fft.rfft(sample[..., ::-1], n=L)
-        conv = jnp.fft.irfft(x * s_rev, n=L)
+        s_rev = fft_rows("rfft", sample[..., ::-1], L)
+        conv = fft_rows("irfft", x * s_rev, L)
         # convolution with the reversed snippet = correlation shifted by m-1
         c = jnp.roll(conv, -(m - 1), axis=-1)
     # circular index k holds lag k (k ≥ 0) and lag k-L (k > L-m): rotate so
@@ -175,13 +205,13 @@ def packed_query_spectra(padded_snippets: jax.Array, fft_len: int):
 
     The correlation spectrum of any window against the query pair is then
     V = X_full · T[j], whose single complex inverse FFT yields BOTH real
-    correlations (ifft(Ca + i·Cb) = ca + i·cb). XLA's TPU irFFT is priced
-    as a full complex transform (measured, benches/probe_fft.py), so this
-    halves the dominant inverse-FFT work with ONE multiply — V is linear
-    in X, so the packing costs nothing extra.
+    correlations (ifft(Ca + i·Cb) = ca + i·cb). A real inverse transform of
+    length n costs about as much as a complex one of length n/2 plus a
+    post-pass, so this halves the dominant inverse-FFT work with ONE
+    multiply — V is linear in X, so the packing costs nothing extra.
     """
     Q = padded_snippets.shape[0]
-    S = jnp.fft.rfft(padded_snippets, n=fft_len)
+    S = fft_rows("rfft", padded_snippets, fft_len)
     Sf = full_spectrum(S, fft_len)
     if Q % 2:
         Sf = jnp.pad(Sf, ((0, 1), (0, 0)))
@@ -203,12 +233,12 @@ def corr_slab_xla_packed(
     # hermitian split (Z[-k] = Z[(n-k) mod n]) recovers both spectra —
     # halves the forward transforms on top of the halved inverses
     wp = jnp.pad(windows, ((0, B % 2), (0, 0)))
-    z = jnp.fft.fft(wp[0::2] + 1j * wp[1::2], n=n)  # [Bp/2, n]
+    z = fft_rows("fft", wp[0::2] + 1j * wp[1::2], n)  # [Bp/2, n]
     zrev = jnp.conj(jnp.roll(z[:, ::-1], 1, axis=1))
     x_even = 0.5 * (z + zrev)
     x_odd = -0.5j * (z - zrev)
     Xf = jnp.stack([x_even, x_odd], axis=1).reshape(-1, n)[:B]
-    v = jnp.fft.ifft(Xf[:, None, :] * t_spec[None])  # [B, Qh, n]
+    v = fft_rows("ifft", Xf[:, None, :] * t_spec[None], n)  # [B, Qh, n]
     c = jnp.stack(
         [jnp.real(v[..., :valid_max]), jnp.imag(v[..., :valid_max])],
         axis=2,
@@ -231,7 +261,7 @@ def corr_single_query_packed(
     if B % 2:
         windows = jnp.pad(windows, ((0, 1), (0, 0)))
     z = windows[0::2] + 1j * windows[1::2]
-    v = jnp.fft.ifft(jnp.fft.fft(z, n=n) * s_full_conj[None])
+    v = fft_rows("ifft", fft_rows("fft", z, n) * s_full_conj[None], n)
     c = jnp.stack(
         [jnp.real(v[..., :valid_max]), jnp.imag(v[..., :valid_max])], axis=1
     )

@@ -1,10 +1,8 @@
-"""MXU matmul FFT: Cooley-Tukey via DFT matmuls + twiddles.
+"""Matmul FFT: Cooley-Tukey via DFT matmuls + twiddles (``fft_impl="mxu"``).
 
-XLA's native TPU FFT runs the hot irFFT of the scan at ~130 GFLOP/s —
-VPU-bound and far off the chip's roofline. This module re-expresses the
-FFT as a recursive four-step decomposition whose butterflies are DENSE
-DFT MATMULS (128–512 points), putting ~97% of the FLOPs on the MXU
-(systolic array) instead:
+An alternative correlation backend to the library FFT: the FFT becomes a
+recursive four-step decomposition whose butterflies are DENSE DFT
+MATMULS (128–512 points), putting ~97% of the FLOPs on the matrix units:
 
     X[c + A·d] = Σ_b  W_N^{bc} · (Σ_a x[a·B + b] · W_A^{ac}) · W_B^{bd}
                  ────twiddle────  ───── DFT_A matmul ──────    recurse
@@ -32,8 +30,7 @@ DEFAULT_PRECISION = jax.lax.Precision.HIGHEST
 def default_factors(n: int) -> tuple[int, ...]:
     """Factor n (a power of two) into balanced DFT-matmul radices ≤ 256.
 
-    Per-stage cost is max(bandwidth pass, matmul FLOPs ∝ radix); radix
-    ~128 balances the two on v5e (measured, benches/probe_bw.py), so the
+    Per-stage cost is max(bandwidth pass, matmul FLOPs ∝ radix); the
     exponent is split into the fewest parts of ≤ 8 bits, as even as
     possible (2^22 → (256, 128, 128))."""
     if n & (n - 1):
@@ -72,7 +69,7 @@ def _twiddle(a: int, m: int, sign: int):
 
 
 def _cmatmul(tr, ti, xr, xi, precision):
-    """(tr + i·ti) @ (xr + i·xi) with the contraction on the MXU.
+    """(tr + i·ti) @ (xr + i·xi) as real matmuls.
 
     t: [c, a]; x: [..., a, m] → [..., c, m]; 4 real matmuls.
     """
@@ -177,7 +174,7 @@ def _fft2p_rec(x, factors, precision, sign):
     """x: [..., 2, n] plane-major → scrambled [..., 2n].
 
     Each stage is ONE standard [2a, 2a] @ [..., 2a, m] matmul (the complex
-    block structure lives in the matrix), so the MXU sees an ideal layout.
+    block structure lives in the matrix), a plain dense matmul layout.
     Twiddles are materialized once per stage (optimization_barrier) —
     letting XLA fuse the cos/sin into consumers would recompute millions
     of transcendentals per batch row.
@@ -274,16 +271,15 @@ def corr_slab_mxu(
     precision=DEFAULT_PRECISION,
     factors: tuple[int, ...] | None = None,
 ):
-    """All (window, query) valid correlations with every FFT on the MXU.
+    """All (window, query) valid correlations with every FFT as matmuls.
 
     The whole round trip stays in DIGIT-REVERSED order (convolution never
     needs natural-order spectra): the forward transform skips the
     inter-stage reordering, the conj-multiply happens scrambled, and the
     inverse consumes scrambled order directly — zero transpose passes.
     Correlation outputs are real, so consecutive (window, query) spectra
-    pack in PAIRS into one complex inverse (icfft(Ca + i·Cb) = ca + i·cb);
-    XLA's TPU irFFT is priced as a full complex transform (measured,
-    benches/probe_fft.py), so the packing alone halves inverse work.
+    pack in PAIRS into one complex inverse (icfft(Ca + i·Cb) = ca + i·cb),
+    so the packing alone halves inverse work.
     Returns [B, Q, valid_max] f32.
     """
     B, W = windows.shape

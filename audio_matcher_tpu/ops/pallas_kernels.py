@@ -1,17 +1,22 @@
-"""Pallas TPU kernels for the peak-scan hot path.
+"""Pallas kernel for the peak-scan hot path (Triton route, NVIDIA GPUs).
 
-The correlation itself lives in XLA's MXU-decomposed FFT; the remaining
-HBM-bound stage is peak picking, where the stock jnp path re-reads the
-[B, V] correlation row once per distance-suppression round plus again for
-prominence bases. ``local_max_block_reduce`` collapses that to a SINGLE
-HBM pass: one grid step per (row, V-tile) computes, in VMEM,
+Peak picking is the memory-bound stage that reads the largest array on
+the hot path, the [B, V] correlation volume. The plain XLA picker
+(``peaks.pick_peaks_core``) re-reads it once per suppression round and
+again for the masks and the prominence pyramid. ``local_max_block_reduce``
+collapses that to one pass: each program owns one row segment of
+``SPAN`` columns and computes, per ``block``-column tile,
 
   * the tile's best strict local maximum (height + global position)
-  * the tile's min / max (the prominence pyramid level)
+  * the tile's masked min / max (the prominence pyramid level)
 
-after which suppression rounds and prominence assembly operate on the tiny
-[B, NB] block arrays. Falls back to interpret mode off-TPU so the same
-code path is unit-testable on CPU (tests/test_pallas.py).
+after which suppression rounds and prominence assembly run as ``jnp`` on
+the small [B, NB] block arrays (``peaks.pick_peaks_pallas``).
+
+Programs are independent (no carry across the grid). The ±1 neighbours
+are masked loads at offset columns, not in-register shifts, so every
+column sees its true neighbours — tile and segment edges need no repair.
+On the CPU the same kernel runs in interpret mode (tests/test_pallas.py).
 """
 
 from __future__ import annotations
@@ -20,74 +25,79 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+# columns per program: 3 × 16 KB loads of f32 — small enough to stay in
+# registers at 8 warps, and a canonical slab (8 windows × 64 queries ×
+# ~2.8 M columns) still launches ~350k programs over the 132 SMs
+SPAN = 4096
+NUM_WARPS = 8
 
 
-
-# Mosaic block-tiling: output blocks must be (8k, 128k)-shaped, so each
-# grid cell covers 8 correlation rows × 128 tiles. With the default
-# 512-col tile that is a (8, 65536) f32 input block (2 MB in VMEM).
-ROWS = 8
-GROUP = 128
-
-
-def _reduce_rows(x, valid, base, rows: int, block: int):
-    """Shared reduce body: per-tile best strict local max + masked extrema.
-
-    x: [rows, GROUP*block] VMEM value; valid: [rows, 1]; base: global
-    column of x[:, 0]. Returns (best_val, best_pos, bmin, bmax), each
-    [rows, GROUP]."""
-    width = GROUP * block
-    cols = jax.lax.broadcasted_iota(jnp.int32, (rows, width), 1) + base
-    colvalid = cols < valid
-
-    x_min = jnp.where(colvalid, x, float("inf"))
-    x_max = jnp.where(colvalid, x, float("-inf"))
-
-    # strict local maxima with in-SEGMENT neighbours; the two segment-edge
-    # columns see wrapped values and are re-checked by the caller's seam
-    # repair
-    left = pltpu.roll(x_max, 1, 1)
-    right = pltpu.roll(x_max, width - 1, 1)  # shift must be non-negative
-    # (cols >= 1) is subsumed by (cols >= base + 1) for base >= 0
-    interior = (cols <= valid - 2) & (cols >= base + 1)
-    interior &= cols <= base + width - 2
-    is_peak = (x > left) & (x > right) & interior & colvalid
-    heights = jnp.where(is_peak, x, float("-inf"))
-
-    h3 = heights.reshape(rows, GROUP, block)
-    best_val = jnp.max(h3, axis=-1)
-    r = jnp.argmax(h3, axis=-1).astype(jnp.int32)  # [rows, GROUP]
-    tile_base = base + jax.lax.broadcasted_iota(
-        jnp.int32, (rows, GROUP), 1
-    ) * block
-    return (
-        best_val,
-        tile_base + r,
-        jnp.min(x_min.reshape(rows, GROUP, block), axis=-1),
-        jnp.max(x_max.reshape(rows, GROUP, block), axis=-1),
-    )
+def segment_width(block: int) -> int:
+    """Columns per program for a ``block``-column tile (a power of two)."""
+    if block <= 0 or block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
+    return max(SPAN, block)
 
 
 def _block_reduce_kernel(
-    valid_ref,  # [ROWS, GROUP] VMEM — per-row valid length (broadcast)
-    x_ref,  # [ROWS, GROUP*block] VMEM — 128 tiles of 8 rows
-    best_val_ref,  # [ROWS, GROUP] out
-    best_pos_ref,  # [ROWS, GROUP] out (int32, global columns)
-    bmin_ref,  # [ROWS, GROUP] out
-    bmax_ref,  # [ROWS, GROUP] out
+    valid_ref,  # [B] int32 — per-row valid length
+    x_ref,  # [B, V] f32 — whole array; each program loads its segment
+    best_val_ref,  # [B, NB] out
+    best_pos_ref,  # [B, NB] out (int32, global columns)
+    bmin_ref,  # [B, NB] out
+    bmax_ref,  # [B, NB] out
     *,
     block: int,
+    span: int,
 ):
-    j = pl.program_id(1)  # tile-group index along V
-    base = j * GROUP * block
-    outs = _reduce_rows(x_ref[:, :], valid_ref[:, 0:1], base, ROWS, block)
-    for ref, val in zip(
-        (best_val_ref, best_pos_ref, bmin_ref, bmax_ref), outs
-    ):
-        ref[:, :] = val
+    row = pl.program_id(0)
+    seg = pl.program_id(1)
+    width = x_ref.shape[1]
+    base = seg * span
+    cols = base + jnp.arange(span, dtype=jnp.int32)
+    valid = valid_ref[row]
+
+    x = plt.load(x_ref.at[row, pl.ds(base, span)])
+    # neighbours as masked loads at offset columns (L1/L2 hits, not extra
+    # device-memory passes); index arrays rather than shifted slices so
+    # the interpreter never clamps a start and misaligns a neighbour
+    left = plt.load(
+        x_ref.at[row, cols - 1], mask=cols >= 1, other=float("-inf")
+    )
+    right = plt.load(
+        x_ref.at[row, cols + 1], mask=cols + 1 < width, other=float("-inf")
+    )
+    colvalid = cols < valid
+    interior = (cols >= 1) & (cols <= valid - 2)
+    is_peak = (x > left) & (x > right) & interior
+    heights = jnp.where(is_peak, x, float("-inf"))
+
+    tiles = span // block
+    h2 = heights.reshape(tiles, block)
+    r = jnp.argmax(h2, axis=1).astype(jnp.int32)  # first index on ties
+    out = pl.ds(seg * tiles, tiles)
+    plt.store(best_val_ref.at[row, out], jnp.max(h2, axis=1))
+    plt.store(
+        best_pos_ref.at[row, out],
+        base + jnp.arange(tiles, dtype=jnp.int32) * block + r,
+    )
+    plt.store(
+        bmin_ref.at[row, out],
+        jnp.min(
+            jnp.where(colvalid, x, float("inf")).reshape(tiles, block),
+            axis=1,
+        ),
+    )
+    plt.store(
+        bmax_ref.at[row, out],
+        jnp.max(
+            jnp.where(colvalid, x, float("-inf")).reshape(tiles, block),
+            axis=1,
+        ),
+    )
 
 
 @partial(jax.jit, static_argnames=("block", "interpret"))
@@ -100,166 +110,34 @@ def local_max_block_reduce(
     """One-pass per-tile peak/extrema reduction.
 
     Returns (best_val [B, NB], best_pos [B, NB], bmin [B, NB], bmax [B, NB])
-    where NB = V // block; best_pos holds GLOBAL column indices.
-    Seam contract: the in-kernel roll spans each whole GROUP·block
-    segment, so in-segment tile edges ARE detected; only the two columns
-    at each GROUP-segment boundary are blind — callers repair exactly
-    those seams (peaks._merge_seams, with its asymmetric >/>= tie rules
-    preserving argmax-first order). Rows/tiles are padded to the (8, 128)
-    Mosaic block grid internally and cropped on return.
+    where NB = V // block; best_pos holds GLOBAL column indices, and a tile
+    without a strict interior local maximum has best_val = -inf. V pads to
+    a whole number of program segments internally (the pad lies beyond
+    every row's valid length) and the outputs crop back to NB tiles.
     """
     B, V = x.shape
     assert V % block == 0, "pad V to a multiple of block"
+    span = segment_width(block)
     nb = V // block
-    b_pad = -(-B // ROWS) * ROWS
-    nb_pad = -(-nb // GROUP) * GROUP
-    if b_pad != B:
-        x = jnp.pad(x, ((0, b_pad - B), (0, 0)))
-        valid_len = jnp.pad(valid_len, (0, b_pad - B))
-    if nb_pad != nb:
-        x = jnp.pad(x, ((0, 0), (0, (nb_pad - nb) * block)))
-    valid2d = jnp.broadcast_to(
-        valid_len.astype(jnp.int32)[:, None], (b_pad, nb_pad)
-    )
-    grid = (b_pad // ROWS, nb_pad // GROUP)
+    v_pad = -(-V // span) * span
+    if v_pad != V:
+        x = jnp.pad(x, ((0, 0), (0, v_pad - V)))
+    nb_pad = v_pad // block
     out_shape = [
-        jax.ShapeDtypeStruct((b_pad, nb_pad), jnp.float32),
-        jax.ShapeDtypeStruct((b_pad, nb_pad), jnp.int32),
-        jax.ShapeDtypeStruct((b_pad, nb_pad), jnp.float32),
-        jax.ShapeDtypeStruct((b_pad, nb_pad), jnp.float32),
-    ]
-    out_specs = [
-        pl.BlockSpec(
-            (ROWS, GROUP), lambda i, j: (i, j), memory_space=pltpu.VMEM
-        )
-        for _ in range(4)
+        jax.ShapeDtypeStruct((B, nb_pad), jnp.float32),
+        jax.ShapeDtypeStruct((B, nb_pad), jnp.int32),
+        jax.ShapeDtypeStruct((B, nb_pad), jnp.float32),
+        jax.ShapeDtypeStruct((B, nb_pad), jnp.float32),
     ]
     bv, bp, bmin, bmax = pl.pallas_call(
-        partial(_block_reduce_kernel, block=block),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (ROWS, GROUP), lambda i, j: (i, j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (ROWS, GROUP * block), lambda i, j: (i, j),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=out_specs,
+        partial(_block_reduce_kernel, block=block, span=span),
+        grid=(B, v_pad // span),
         out_shape=out_shape,
-        # 512-col tiles exceed the 16 MB scoped-VMEM default
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
+        compiler_params=plt.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
         ),
         interpret=interpret,
-    )(valid2d, x.astype(jnp.float32))
-    return bv[:B, :nb], bp[:B, :nb], bmin[:B, :nb], bmax[:B, :nb]
-
-
-def _block_reduce_packed_kernel(
-    valid_ref,  # [2*PROWS, GROUP] — logical-row valid lengths (interleaved)
-    scale_ref,  # [2*PROWS, GROUP] — per logical row multiplier
-    yr_ref,  # [PROWS, GROUP*block] — even logical rows
-    yi_ref,  # [PROWS, GROUP*block] — odd logical rows
-    best_val_ref, best_pos_ref, bmin_ref, bmax_ref,  # [2*PROWS, GROUP] out
-    *,
-    block: int,
-):
-    j = pl.program_id(1)
-    base = j * GROUP * block
-    prows = yr_ref.shape[0]
-
-    # reduce each plane separately (logical rows don't interact) and
-    # interleave only the tiny [prows, GROUP] block outputs — a full-
-    # volume sublane shuffle would cost an extra pass over the segment
-    ev = _reduce_rows(
-        yr_ref[:, :] * scale_ref[0::2, 0:1],
-        valid_ref[0::2, 0:1], base, prows, block,
-    )
-    ov = _reduce_rows(
-        yi_ref[:, :] * scale_ref[1::2, 0:1],
-        valid_ref[1::2, 0:1], base, prows, block,
-    )
-    for ref, e, o in zip(
-        (best_val_ref, best_pos_ref, bmin_ref, bmax_ref), ev, ov
-    ):
-        ref[:, :] = jnp.stack([e, o], axis=1).reshape(2 * prows, GROUP)
-
-
-@partial(jax.jit, static_argnames=("block", "interpret"))
-def local_max_block_reduce_packed(
-    yr: jax.Array,  # [P, V] — correlations of even logical rows
-    yi: jax.Array,  # [P, V] — odd logical rows
-    scale: jax.Array,  # [2P] f32 — per logical row (e.g. inv autocorr)
-    valid_len: jax.Array,  # [2P] int32
-    block: int = 512,
-    interpret: bool = False,
-):
-    """:func:`local_max_block_reduce` over the pair-packed inverse-FFT
-    planes: logical row ``2p`` is ``yr[p]·scale[2p]``, row ``2p+1`` is
-    ``yi[p]·scale[2p+1]``. The de-interleave and the scale happen in VMEM
-    on the kernel's single read — the stacked/scaled correlation volume is
-    never materialized. Returns block arrays shaped [2P, NB]."""
-    P, V = yr.shape
-    assert V % block == 0, "pad V to a multiple of block"
-    nb = V // block
-    prows = ROWS  # physical plane rows per grid cell → 16 logical rows
-    p_pad = -(-P // prows) * prows
-    nb_pad = -(-nb // GROUP) * GROUP
-    L = 2 * p_pad
-    if p_pad != P:
-        yr = jnp.pad(yr, ((0, p_pad - P), (0, 0)))
-        yi = jnp.pad(yi, ((0, p_pad - P), (0, 0)))
-        valid_len = jnp.pad(valid_len, (0, L - 2 * P))
-        scale = jnp.pad(scale, (0, L - 2 * P))
-    if nb_pad != nb:
-        yr = jnp.pad(yr, ((0, 0), (0, (nb_pad - nb) * block)))
-        yi = jnp.pad(yi, ((0, 0), (0, (nb_pad - nb) * block)))
-    valid2d = jnp.broadcast_to(
-        valid_len.astype(jnp.int32)[:, None], (L, nb_pad)
-    )
-    scale2d = jnp.broadcast_to(
-        scale.astype(jnp.float32)[:, None], (L, nb_pad)
-    )
-    grid = (p_pad // prows, nb_pad // GROUP)
-    out_shape = [
-        jax.ShapeDtypeStruct((L, nb_pad), jnp.float32),
-        jax.ShapeDtypeStruct((L, nb_pad), jnp.int32),
-        jax.ShapeDtypeStruct((L, nb_pad), jnp.float32),
-        jax.ShapeDtypeStruct((L, nb_pad), jnp.float32),
-    ]
-    lspec = pl.BlockSpec(
-        (2 * prows, GROUP), lambda i, j: (i, j), memory_space=pltpu.VMEM
-    )
-    pspec = pl.BlockSpec(
-        (prows, GROUP * block), lambda i, j: (i, j), memory_space=pltpu.VMEM
-    )
-    bv, bp, bmin, bmax = pl.pallas_call(
-        partial(_block_reduce_packed_kernel, block=block),
-        grid=grid,
-        in_specs=[lspec, lspec, pspec, pspec],
-        out_specs=[lspec for _ in range(4)],
-        out_shape=out_shape,
-        # 16 logical rows of elementwise temporaries exceed the 16 MB
-        # scoped-VMEM default (the dense kernel OOMs at half this already)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(valid2d, scale2d, yr.astype(jnp.float32), yi.astype(jnp.float32))
-    n = 2 * P
-    return bv[:n, :nb], bp[:n, :nb], bmin[:n, :nb], bmax[:n, :nb]
-
-
-def seam_repair_host(x: np.ndarray, valid_len: int, block: int):
-    """Reference (numpy) for the caller-side seam contract: local maxima at
-    tile boundaries that the kernel skips."""
-    V = x.shape[-1]
-    seams = []
-    for j in range(1, V // block):
-        for pos in (j * block - 1, j * block):
-            if 1 <= pos <= valid_len - 2:
-                if x[pos] > x[pos - 1] and x[pos] > x[pos + 1]:
-                    seams.append((pos, float(x[pos])))
-    return seams
+        backend="triton",
+        name="peaks_block_reduce",
+    )(valid_len.astype(jnp.int32), x.astype(jnp.float32))
+    return bv[:, :nb], bp[:, :nb], bmin[:, :nb], bmax[:, :nb]

@@ -2,8 +2,8 @@
 
 A new capability beyond the reference (BASELINE.json config #4:
 noise-robust spectrogram-domain matching — the reference matches raw PCM
-only). TPU mapping: framing → batched rFFT (MXU-decomposed), mel projection
-as one matmul, and time-axis correlation of whole fingerprints via
+only). Device mapping: framing → batched rFFT, mel projection as one
+matmul, and time-axis correlation of whole fingerprints via
 rFFT/irFFT with contraction over mel bins; sliding-window norms come from a
 cumulative-sum box filter so the score is a true normalized cross
 correlation in [-1, 1].
@@ -62,7 +62,7 @@ def stft_log_mel_core(x, fb, n_fft: int, hop: int, n_frames: int):
     matrix, and a whole-signal power array is [n_frames, n_fft//2+1]
     (~3.8 GB f32 for a 3 h 44.1 kHz episode). Each block instead computes
     power for _FRAME_BLOCK frames and immediately projects onto the mel
-    basis (one MXU matmul), so only the [n_frames, n_mels] fingerprint —
+    basis (one matmul), so only the [n_frames, n_mels] fingerprint —
     1/8 the power array — ever exists in HBM.
     """
     n_blocks = -(-n_frames // _FRAME_BLOCK)
@@ -76,8 +76,8 @@ def stft_log_mel_core(x, fb, n_fft: int, hop: int, n_frames: int):
 
     if n_fft % hop == 0:
         # overlapping frames as k static slices of a [rows, hop] view —
-        # no gather (TPU gathers of a [frames, n_fft] index matrix are
-        # orders of magnitude slower than slice+concat)
+        # no gather of a [frames, n_fft] index matrix (plain copies move
+        # the bytes once; a gather also reads the index matrix)
         k = n_fft // hop
 
         def frames_of(span):
@@ -90,8 +90,8 @@ def stft_log_mel_core(x, fb, n_fft: int, hop: int, n_frames: int):
     else:
         log.warning(
             "n_fft %% hop != 0 (%d %% %d): STFT framing falls back to an "
-            "index-matrix gather — orders of magnitude slower on TPU "
-            "(pick a hop dividing n_fft for the sliced path)", n_fft, hop,
+            "index-matrix gather — slower than the sliced path "
+            "(pick a hop dividing n_fft)", n_fft, hop,
         )
         local_idx = (
             jnp.arange(_FRAME_BLOCK)[:, None] * hop
@@ -107,7 +107,9 @@ def stft_log_mel_core(x, fb, n_fft: int, hop: int, n_frames: int):
         frames = frames_of(span) * window[None, :]
         z = jnp.fft.rfft(frames, n=n_fft)
         power = jnp.real(z) ** 2 + jnp.imag(z) ** 2
-        return jnp.log(power @ fb_t + 1e-8)  # [_FRAME_BLOCK, n_mels]
+        # HIGHEST: a GPU may otherwise run f32 matmuls in TF32 (~3 digits)
+        mel = jnp.matmul(power, fb_t, precision=jax.lax.Precision.HIGHEST)
+        return jnp.log(mel + 1e-8)  # [_FRAME_BLOCK, n_mels]
 
     mel = jax.lax.map(block, jnp.arange(n_blocks))
     return mel.reshape(n_blocks * _FRAME_BLOCK, -1)[:n_frames]

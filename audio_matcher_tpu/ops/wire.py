@@ -1,13 +1,12 @@
 """The staging wire grid's DEVICE decode — one definition.
 
 Encode lives host-side in ``models.matcher.quantize_wire`` (LUT-based for
-μ-law); this is its traced inverse, shared by the jnp path
-(``models.matcher.dequantize_on_device``) and the fused Pallas forward
-kernels (``ops.pallas_fft``), which must stay bit-compatible with the
-host grid: int16 is value/65535 (the reference's ``(l+r)*0.5/65535`` PCM
-scale, mp3_reader.rs:12), μ-law (μ=255) expands arithmetically because a
-256-entry LUT gather over a whole episode is orders of magnitude slower
-on TPU than a few elementwise ops (PERF.md).
+μ-law); this is its traced inverse, used by
+``models.matcher.dequantize_on_device`` and the spectrogram scanner,
+bit-compatible with the host grid: int16 is value/65535 (the reference's
+``(l+r)*0.5/65535`` PCM scale, mp3_reader.rs:12), μ-law (μ=255) expands
+arithmetically rather than through a 256-entry LUT gather over the whole
+episode.
 """
 
 from __future__ import annotations
@@ -20,19 +19,12 @@ MU = 255.0
 
 def dequant_to_f32(x):
     """Wire values (i16 / u8 / f32) → f32 reference-scale PCM (traced;
-    usable inside Pallas kernel bodies and plain jit alike)."""
+    plain elementwise ops, usable inside kernel bodies and jit alike)."""
     if x.dtype == jnp.int16:
         return x.astype(jnp.float32) * jnp.float32(1.0 / 65535.0)
     if x.dtype == jnp.uint8:
-        # Mosaic lowering gaps, hit live on the chip (r5 campaign):
-        # uint8->f32 convert and expm1 are both unimplemented for TC
-        # kernels. Hop through int32 (exact for 0..255) and expand with
-        # exp()-1: the smallest nonzero |b|*ln(1+mu) the wire grid can
-        # produce is ln(256)/255 ~= 0.0217, where exp()-1 keeps ~5e-6
-        # relative accuracy — three orders inside mu-law's own ~2%
-        # companding step. tests/test_staging.py pins the jaxpr.
-        b = x.astype(jnp.int32).astype(jnp.float32) * jnp.float32(1.0 / 127.5) - 1.0
-        mag = jnp.exp(jnp.abs(b) * jnp.float32(np.log1p(MU))) - 1.0
+        b = x.astype(jnp.float32) * jnp.float32(1.0 / 127.5) - 1.0
+        mag = jnp.expm1(jnp.abs(b) * jnp.float32(np.log1p(MU)))
         u = jnp.where(b >= 0, mag, -mag) * jnp.float32(1.0 / MU)
         return u * jnp.float32(32768.0 / 65535.0)
     return x.astype(jnp.float32)

@@ -104,9 +104,7 @@ def bench_match_vs_distance(quick: bool):
 
 
 def bench_impl_matrix(quick: bool):
-    """Full match across (fft_impl, peaks_impl) — the round-2 options."""
-    import jax
-
+    """Full match across every (fft_impl, peaks_impl) pair."""
     from audio_matcher_tpu.models import MatchConfig, SnippetMatcher
 
     sr = 44100 if not quick else 8000
@@ -115,16 +113,12 @@ def bench_impl_matrix(quick: bool):
     snippet = (rng.standard_normal(7 * sr) * 0.2).astype(np.float32)
     episode = (rng.standard_normal(secs * sr) * 0.05).astype(np.float32)
     episode[11 * sr : 11 * sr + len(snippet)] = snippet
-    on_tpu = jax.default_backend() == "tpu"
-    peak_impls = ("jnp", "pallas") if on_tpu else ("jnp",)
-    # "vpu" off-TPU runs the pallas FFT in INTERPRET mode — it would
-    # grind for hours on the 1-vCPU host, same reason pallas peaks are
-    # gated above
-    fft_impls = (
-        ("xla", "xla_packed", "mxu", "vpu")
-        if on_tpu
-        else ("xla", "xla_packed", "mxu")
-    )
+    from audio_matcher_tpu.ops.impls import FFT_IMPLS, platform
+
+    # the Pallas peak kernel runs in interpret mode on the CPU — minutes
+    # per match there, so the matrix times it only where it compiles
+    peak_impls = ("jnp", "pallas") if platform() == "gpu" else ("jnp",)
+    fft_impls = FFT_IMPLS
     for fft_impl in fft_impls:
         for peaks_impl in peak_impls:
             cfg = MatchConfig(

@@ -6,6 +6,8 @@ jnp path is compared against scipy.signal.correlate (float64) with an
 explicit float tolerance.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import scipy.signal
@@ -94,3 +96,59 @@ def test_degenerate_shorter_within():
     sample = np.array([1.0, 1.0, 1.0], np.float32)
     got = np.asarray(correlate(within, sample, mode="valid"))
     assert got.shape == (1,)
+
+
+@pytest.mark.parametrize("op", ["fft", "ifft", "rfft", "irfft"])
+@pytest.mark.parametrize("lead", [(6,), (7,), (2, 3, 5)])
+def test_fft_rows_chunks_below_the_element_limit(monkeypatch, rng, op, lead):
+    """Above FFT_MAX_ELEMENTS per call, fft_rows splits the leading batch
+    into equal chunks (7 rows: a prime count → single-row chunks) and
+    returns exactly what one call returns."""
+    import jax.numpy as jnp
+
+    C = importlib.import_module("audio_matcher_tpu.ops.correlate")
+
+    n = 64
+    width = n // 2 + 1 if op == "irfft" else n
+    x = rng.standard_normal((*lead, width))
+    if op != "rfft":
+        x = x + 1j * rng.standard_normal((*lead, width))
+    x = jnp.asarray(x.astype(np.complex64 if op != "rfft" else np.float32))
+    want = getattr(jnp.fft, op)(x, n=n)
+    monkeypatch.setattr(C, "FFT_MAX_ELEMENTS", 3 * n)
+    got = C.fft_rows(op, x, n)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_resident_xla_scan_same_peaks_with_chunked_fft(monkeypatch, rng):
+    """The resident multi-query scan on fft_impl="xla" finds the same
+    peaks when its batched irfft is forced through fft_rows' chunking."""
+    from audio_matcher_tpu.models.matcher import MatchConfig
+    C = importlib.import_module("audio_matcher_tpu.ops.correlate")
+    from audio_matcher_tpu.parallel.mesh import make_mesh
+    from audio_matcher_tpu.parallel.sweep import ShardedScanner
+
+    sr = 1000
+    snips = [(rng.standard_normal(sr // 2) * 0.2).astype(np.float32),
+             (rng.standard_normal(sr // 3) * 0.2).astype(np.float32)]
+    ep = (rng.standard_normal(sr * 12) * 0.05).astype(np.float32)
+    ep[2500:2500 + len(snips[0])] = snips[0]
+    ep[7100:7100 + len(snips[1])] = snips[1]
+    cfg = MatchConfig(fft_impl="xla", chunk_secs=4.0, distance_secs=2.0,
+                      slab=2, block=256)
+
+    def scan():
+        sc = ShardedScanner(snips, sr, cfg, mesh=make_mesh(1))
+        return [[(p.position, p.height) for p in per_q]
+                for per_q in sc.scan_resident([ep])[0]]
+
+    want = scan()
+    monkeypatch.setattr(C, "FFT_MAX_ELEMENTS", 2 * 8192)
+    got = scan()
+    assert [[p for p, _ in q] for q in got] == [[p for p, _ in q] for q in want]
+    assert [p for p, h in want[0] if h > 0.5] == [2500]
+    for gq, wq in zip(got, want):
+        np.testing.assert_allclose([h for _, h in gq], [h for _, h in wq],
+                                   rtol=1e-5, atol=1e-6)

@@ -328,21 +328,6 @@ def test_overshadow_filter_collapses_exact_duplicates():
     assert [p.position for p in out] == [100, 400]
 
 
-def test_round_planes_width_grid():
-    """Review r3: the fused planes crop must land on the 8·M grid (or n)
-    — peaks_crop_width alone is only block-granular."""
-    from audio_matcher_tpu.ops.pallas_fft import (
-        round_planes_width, split_factors,
-    )
-
-    for n in (1 << 14, 1 << 20, 1 << 25):
-        _, M = split_factors(n)
-        for w in (1, 8 * M - 1, 8 * M, 8 * M + 1, n - 1, n):
-            r = round_planes_width(w, n)
-            assert r >= min(w, n)
-            assert r == n or (r // M) % 8 == 0
-
-
 def test_overshadow_filter_fuzz_vs_bruteforce(rng):
     """Property fuzz: overshadow_filter == an independently-written
     brute-force of the reference rule (audio_matcher.rs:136-160: drop a

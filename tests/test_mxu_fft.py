@@ -1,5 +1,6 @@
-"""MXU matmul-FFT oracle tests vs numpy (CPU; precision must carry to TPU
-because HIGHEST-precision matmuls are f32-equivalent on both backends)."""
+"""Matmul-FFT oracle tests vs numpy (CPU; the precision carries to the GPU
+because HIGHEST-precision matmuls are f32-equivalent on both backends —
+no TF32)."""
 
 import numpy as np
 import pytest

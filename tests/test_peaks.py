@@ -2,7 +2,7 @@
 
 The reference relies on the ``find_peaks`` crate (scipy-compatible
 prominence/distance semantics, audio_matcher.rs:221-230); we verify our
-batched TPU implementation against scipy directly.
+batched device implementation against scipy directly.
 """
 
 import numpy as np

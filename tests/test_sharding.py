@@ -247,11 +247,10 @@ def test_sweep_groups_fill_whole_mesh(rng, snippets, tmp_path, monkeypatch):
         assert got == [SR]
 
 
-def test_resident_sharded_vpu_packed_on_mesh(rng, snippets):
-    """The fully-fused production path (pallas VPU FFT with the product
-    folded into the inverse minor pass + packed peak kernel) under
-    shard_map on the 8-device mesh matches the xla+jnp reference results.
-    Chunk size chosen so fft_len >= 2^14 (no xla_packed fallback)."""
+def test_resident_sharded_pallas_peaks_on_mesh(rng, snippets):
+    """The GPU production path (pair-packed cuFFT correlation + the Triton
+    peak kernel, interpreted here) under shard_map on the 8-device mesh
+    matches the xla+jnp reference results on one device."""
     base = dict(chunk_secs=8.0, distance_secs=10.0, slab=2, block=256)
     episodes = []
     for offsets in ([(0, 1.0), (1, 12.0)], [(0, 2.5)], []):
@@ -265,14 +264,13 @@ def test_resident_sharded_vpu_packed_on_mesh(rng, snippets):
         snippets, SR, MatchConfig(fft_impl="xla", peaks_impl="jnp", **base),
         mesh=make_mesh(1),
     )
-    fused = ShardedScanner(
+    prod = ShardedScanner(
         snippets, SR,
-        MatchConfig(fft_impl="vpu", peaks_impl="pallas", **base),
+        MatchConfig(fft_impl="xla_packed", peaks_impl="pallas", **base),
         mesh=make_mesh(8),
     )
-    assert fused.fft_impl == "vpu"
     want = ref.scan_resident(episodes)
-    got = fused.scan_resident(episodes)
+    got = prod.scan_resident(episodes)
     for e in range(len(episodes)):
         for q in range(len(snippets)):
             g = [(p.position, round(p.height, 5)) for p in got[e][q]
@@ -284,10 +282,10 @@ def test_resident_sharded_vpu_packed_on_mesh(rng, snippets):
 
 def test_resident_single_query_window_packed_paths(rng, snippets):
     """Q=1 through the resident batch scanner takes the WINDOW-pair-packed
-    branches (vpu+pallas fused and xla_packed) instead of padding the
-    query axis — both must match the xla+jnp reference exactly at the
-    peak level (BASELINE config #2 runs this shape on the chip).
-    Chunk size chosen so fft_len >= 2^14 (no xla_packed fallback)."""
+    xla_packed branch instead of padding the query axis — with either
+    peak picker and on the lossless wires it must match the xla+jnp
+    reference exactly at the peak level (BASELINE config #2 runs this
+    shape on the chip)."""
     base = dict(chunk_secs=8.0, distance_secs=10.0, slab=2, block=256)
     one = [snippets[0]]
     episodes = []
@@ -304,8 +302,8 @@ def test_resident_single_query_window_packed_paths(rng, snippets):
     )
     want = ref.scan_resident(episodes)
     for impl, peaks, wire in (
-        ("vpu", "pallas", "float32"),
-        ("vpu", "pallas", "int16"),  # fused branch reads the wire direct
+        ("xla_packed", "pallas", "float32"),
+        ("xla_packed", "pallas", "int16"),
         ("xla_packed", "jnp", "float32"),
     ):
         got = ShardedScanner(
@@ -336,8 +334,7 @@ def test_resident_cross_impl_fuzz_random_configs(rng):
     """Differential fuzz of the RESIDENT batch program across impl pairs
     and query counts (incl. Q=1's window-pair-packed branches and odd
     slabs): every impl must agree with the xla+jnp reference on peak
-    positions for random shapes whose fft_len clears the VPU two-factor
-    minimum (chunk >= ~8 s at SR=1000 → fft 2^14)."""
+    positions for random shapes."""
     from audio_matcher_tpu.parallel.sweep import ShardedScanner
 
     sr = 1000
@@ -376,7 +373,7 @@ def test_resident_cross_impl_fuzz_random_configs(rng):
             MatchConfig(fft_impl="xla", peaks_impl="jnp", **base),
             mesh=make_mesh(1),
         ).scan_resident(episodes)
-        for impl, peaks in (("vpu", "pallas"), ("xla_packed", "jnp")):
+        for impl, peaks in (("xla_packed", "pallas"), ("mxu", "jnp")):
             got = ShardedScanner(
                 snippets_t, sr,
                 MatchConfig(fft_impl=impl, peaks_impl=peaks, **base),
@@ -717,8 +714,7 @@ def test_stage_fence_policy(monkeypatch):
 
 def test_chunked_staging_matches_monolithic(rng, snippets, monkeypatch):
     """Buffers over AUDIO_MATCHER_PUT_BYTES stage as equal ≤-cap flat
-    pieces (the relay collapses on monolithic multi-GB transfers,
-    PERF.md; element-granular so even a single over-cap row splits) —
+    pieces (element-granular so even a single over-cap row splits) —
     same peaks, same compiled shape per group, no extra pad rows."""
     from audio_matcher_tpu.parallel.sweep import ShardedScanner
 
@@ -960,104 +956,3 @@ def test_sweep_tail_pad_not_sticky_after_byte_flush(
     for p in paths:
         got = [pk.position for pk in results[str(p)][0] if pk.height > 0.5]
         assert got == [want[str(p)]], p
-
-@pytest.mark.parametrize("wire", ["float32", "int16", "mulaw8"])
-def test_production_scan_lowers_for_mosaic(monkeypatch, wire):
-    """Cross-platform AOT lowering of the PRODUCTION resident scan
-    program (fft_impl=vpu + peaks_impl=pallas, interpret=False) through
-    the real Mosaic TPU pipeline, from the CPU backend — no chip needed.
-
-    Pallas kernels lower to Mosaic MLIR client-side, so unsupported
-    primitives surface here exactly as they would on hardware. Round 5's
-    campaign lost two chip attempts to this class of bug (uint8->f32
-    convert, then expm1, both unimplemented for Mosaic TC kernels and
-    both invisible to the interpret-mode CPU tests); this pins every
-    wire dtype's fused program as Mosaic-lowerable."""
-    import jax
-    import jax.numpy as jnp
-
-    from audio_matcher_tpu.parallel import sweep as S
-
-    cfg = MatchConfig(
-        fft_impl="vpu", peaks_impl="pallas", transfer_dtype=wire,
-        chunk_secs=8.0, distance_secs=2.0, slab=2, block=256,
-    )
-    snips = [np.zeros(SR // 2, np.float32), np.zeros(SR // 4, np.float32)]
-    sc = ShardedScanner(snips, SR, cfg, mesh=make_mesh(1))
-    sample_f = sc._sample_f_resident  # computed on CPU, pre-patch
-    n_slabs = 2
-    n_pad = n_slabs * cfg.slab * sc.chunk + sc.overlap
-    dtype = {
-        "float32": jnp.float32, "int16": jnp.int16, "mulaw8": jnp.uint8,
-    }[wire]
-
-    # resident_match_step picks interpret from the default backend —
-    # pretend we're on the chip so the pallas_calls lower via Mosaic
-    monkeypatch.setattr(S.jax, "default_backend", lambda: "tpu")
-    step = S.resident_match_step(
-        sc.chunk, sc.window, sc.fft_len, sc.valid, sc.distance_samples,
-        sc.n_peaks, cfg.block, cfg.slab, n_slabs, "vpu", "pallas",
-    )[0]
-    E, Q = 2, 2
-    step.trace(
-        jax.ShapeDtypeStruct((E, n_pad), dtype),
-        jax.ShapeDtypeStruct((E,), jnp.int32),
-        sample_f,
-        jax.ShapeDtypeStruct((Q,), jnp.float32),
-        jax.ShapeDtypeStruct((Q,), jnp.int32),
-    ).lower(lowering_platforms=("tpu",))
-
-    # Q=1 takes the window-pair-packed branches (the config-#2 latency
-    # path — exactly where the mulaw8 campaign stages died)
-    monkeypatch.setattr(S.jax, "default_backend", lambda: "cpu")
-    sc1 = ShardedScanner(snips[:1], SR, cfg, mesh=make_mesh(1))
-    sample_f1 = sc1._sample_f_resident
-    monkeypatch.setattr(S.jax, "default_backend", lambda: "tpu")
-    step1 = S.resident_match_step(
-        sc1.chunk, sc1.window, sc1.fft_len, sc1.valid,
-        sc1.distance_samples, sc1.n_peaks, cfg.block, cfg.slab, n_slabs,
-        "vpu", "pallas",
-    )[0]
-    n_pad1 = n_slabs * cfg.slab * sc1.chunk + sc1.overlap
-    step1.trace(
-        jax.ShapeDtypeStruct((1, n_pad1), dtype),
-        jax.ShapeDtypeStruct((1,), jnp.int32),
-        sample_f1,
-        jax.ShapeDtypeStruct((1,), jnp.float32),
-        jax.ShapeDtypeStruct((1,), jnp.int32),
-    ).lower(lowering_platforms=("tpu",))
-
-def test_sharded_resident_scan_lowers_for_mosaic(monkeypatch):
-    """Same Mosaic cross-platform lowering pin for the MULTI-CHIP
-    resident program (shard_map over the 8-device mesh): the dryrun
-    exercises it interpret-mode on CPU, so without this no Mosaic
-    lowering of the sharded path ever happens before real multi-chip
-    hardware."""
-    import jax
-    import jax.numpy as jnp
-
-    from audio_matcher_tpu.parallel import sweep as S
-
-    cfg = MatchConfig(
-        fft_impl="vpu", peaks_impl="pallas", transfer_dtype="mulaw8",
-        chunk_secs=8.0, distance_secs=2.0, slab=2, block=256,
-    )
-    snips = [np.zeros(SR // 2, np.float32), np.zeros(SR // 4, np.float32)]
-    mesh = make_mesh(8)
-    sc = ShardedScanner(snips, SR, cfg, mesh=mesh)
-    sample_f = sc._sample_f_resident
-    n_slabs = 2
-    n_pad = n_slabs * cfg.slab * sc.chunk + sc.overlap
-    monkeypatch.setattr(S.jax, "default_backend", lambda: "tpu")
-    step = S.resident_sharded_step(
-        mesh, sc.chunk, sc.window, sc.fft_len, sc.valid,
-        sc.distance_samples, sc.n_peaks, cfg.block, cfg.slab, n_slabs,
-        "vpu", "pallas",
-    )
-    step.trace(
-        jax.ShapeDtypeStruct((8, n_pad), jnp.uint8),
-        jax.ShapeDtypeStruct((8,), jnp.int32),
-        sample_f,
-        jax.ShapeDtypeStruct((2,), jnp.float32),
-        jax.ShapeDtypeStruct((2,), jnp.int32),
-    ).lower(lowering_platforms=("tpu",))

@@ -323,9 +323,7 @@ def test_spectrogram_staged_width_adapts(rng):
 def test_spectrogram_scanner_staging_is_execution_free(rng, monkeypatch):
     """Scanner construction + host-pad stage_resident must run NO device
     program: the query log_mel (a jitted execution) is computed lazily at
-    scan time, so a staged batch rides the relay's pre-execution fast
-    upload path (review r4 — the eager fingerprints silently flipped
-    every bench upload onto the ~30–160 MB/s post-execution path)."""
+    scan time, so staging time holds no compile or program."""
     from audio_matcher_tpu.ops import stft as stft_mod
     from audio_matcher_tpu.parallel.mesh import make_mesh
     from audio_matcher_tpu.parallel.sweep import ShardedSpectrogramScanner

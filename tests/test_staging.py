@@ -299,69 +299,3 @@ def test_mulaw_pad_is_silence():
     # int16/float32 pads stay zero
     p16 = pad_wire_on_device(jnp.full(4, 7, jnp.int16), 12)
     assert np.asarray(p16[4:] == 0).all()
-
-def test_wire_decode_has_no_narrow_to_float_convert():
-    """Mosaic can't lower uint8->f32 (or other sub-32-bit int -> float)
-    convert_element_type inside a Pallas kernel — the fused wire-reading
-    forward traced dequant_to_f32 and died on the chip with
-    'Unsupported cast: uint8 -> float32' (round 5; int16->f32 lowers
-    fine — the int16 leg ran on the chip). Pin the contract: no 8-bit
-    int -> float convert in the traced decode; uint8 widens to int32
-    first."""
-    import jax
-    import jax.numpy as jnp
-
-    from audio_matcher_tpu.ops.wire import dequant_to_f32
-
-    for wire_dtype in (jnp.uint8, jnp.int16):
-        jaxpr = jax.make_jaxpr(dequant_to_f32)(
-            jax.ShapeDtypeStruct((8, 128), wire_dtype)
-        )
-        for eqn in jaxpr.jaxpr.eqns:
-            if eqn.primitive.name != "convert_element_type":
-                continue
-            src = eqn.invars[0].aval.dtype
-            dst = eqn.outvars[0].aval.dtype
-            if jnp.issubdtype(src, jnp.integer) and jnp.issubdtype(
-                dst, jnp.floating
-            ):
-                assert jnp.dtype(src).itemsize >= 2, (
-                    f"8-bit int->float convert {src}->{dst} would fail "
-                    "Mosaic lowering on TPU"
-                )
-
-def test_matcher_batch_program_lowers_for_mosaic(monkeypatch):
-    """Mosaic cross-platform lowering pin for SnippetMatcher's resident
-    batch program (the matcher CLI's TPU path) on the mulaw8 wire with
-    the production fused impls — same class of guard as
-    tests/test_sharding.py's scanner pins."""
-    import jax
-    import jax.numpy as jnp
-
-    from audio_matcher_tpu.models import matcher as M
-
-    sr = 1000
-    snippet = np.zeros(sr // 2, np.float32)
-    snippet[10] = 0.3  # nonzero autocorrelation
-    cfg = MatchConfig(
-        chunk_secs=8.0, distance_secs=2.0, slab=2, block=256,
-        transfer_dtype="mulaw8", fft_impl="vpu", peaks_impl="pallas",
-    )
-    m = SnippetMatcher(snippet, sr, cfg)
-    sample_f = m._sample_f  # computed on CPU, pre-patch
-    n_slabs = 2
-    n_pad = n_slabs * cfg.slab * m.chunk + m.overlap
-
-    monkeypatch.setattr(M.jax, "default_backend", lambda: "tpu")
-    E = 2
-    M._match_batch_resident.trace(
-        jax.ShapeDtypeStruct((E, n_pad), jnp.uint8),
-        jax.ShapeDtypeStruct((E,), jnp.int32),
-        sample_f,
-        np.float32(1.0),
-        chunk=m.chunk, window=m.window, m=m.snippet.m,
-        fft_len=m.fft_len, valid_max=m.valid,
-        distance=m.distance_samples, n_peaks=m.n_peaks, block=cfg.block,
-        slab=cfg.slab, n_slabs=n_slabs, fft_impl="vpu",
-        peaks_impl="pallas",
-    ).lower(lowering_platforms=("tpu",))
